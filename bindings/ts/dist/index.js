@@ -67,7 +67,7 @@ export class SubprocessTransport {
   }
 }
 
-/** HTTP transport to a running TPU web server (POST /api + token auth). */
+/** HTTP transport to a running accelerator web server (POST /api + token auth). */
 export class HttpTransport {
   constructor(url, token) {
     this.url = url.replace(/\/$/, "");
@@ -197,7 +197,7 @@ export class RunMatSession {
 }
 
 /**
- * Client-side session: MATLAB executes in the host process, no TPU
+ * Client-side session: MATLAB executes in the host process, no accelerator
  * server. Browser: pass { pyodide, wheelUrl }. Node: subprocess running
  * the jax-free client profile (`python -m runmat_tpu.client`).
  */
@@ -214,7 +214,7 @@ export function createLocalSession(options = {}) {
   });
 }
 
-/** Session against a running TPU web server (`runmat-tpu serve --http`). */
+/** Session against a running accelerator web server (`runmat-tpu serve --http`). */
 export function connect(url, token) {
   return new RunMatSession({ transport: new HttpTransport(url, token) });
 }

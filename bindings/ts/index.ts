@@ -13,8 +13,8 @@
  *                                node: falls back to a subprocess running
  *                                `python -m runmat_tpu.client` (same
  *                                host-only engine profile)
- *  - connect(url, token)         remote TPU server over HTTP (POST /api)
- *  - new RunMatSession()         local subprocess with the full TPU engine
+ *  - connect(url, token)         remote accelerator server over HTTP (POST /api)
+ *  - new RunMatSession()         local subprocess with the full accelerator engine
  */
 
 import { spawn, ChildProcess } from "node:child_process";
@@ -109,7 +109,7 @@ export interface BuiltinEntry {
   min_in: number;
   max_in: number | null;
   max_out: number;
-  /** has a device (TPU) fast path via the accel engine */
+  /** has a device (GPU) fast path via the accel engine */
   accel: boolean;
   /** output must be gathered to host (e.g. disp) */
   sink: boolean;
@@ -210,7 +210,7 @@ export class SubprocessTransport implements Transport {
   }
 }
 
-/** HTTP transport to a running TPU web server (POST /api + token auth). */
+/** HTTP transport to a running accelerator web server (POST /api + token auth). */
 export class HttpTransport implements Transport {
   private nextId = 1;
 
@@ -370,7 +370,7 @@ export class RunMatSession {
 }
 
 /**
- * Client-side session: MATLAB executes in the host process, no TPU
+ * Client-side session: MATLAB executes in the host process, no accelerator
  * server involved (≙ the reference npm package's default in-browser
  * mode). In a browser pass a Pyodide instance + wheel URL; in node the
  * fallback is a subprocess running the jax-free client profile
@@ -395,7 +395,7 @@ export function createLocalSession(
   });
 }
 
-/** Session against a running TPU web server (`runmat-tpu serve --http`). */
+/** Session against a running accelerator web server (`runmat-tpu serve --http`). */
 export function connect(url: string, token: string): RunMatSession {
   return new RunMatSession({ transport: new HttpTransport(url, token) });
 }

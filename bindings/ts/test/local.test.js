@@ -10,7 +10,7 @@ import test from "node:test";
 import assert from "node:assert/strict";
 import { createLocalSession, connect, HttpTransport } from "../dist/index.js";
 
-test("local session executes without the TPU server", async () => {
+test("local session executes without the accelerator server", async () => {
   const s = createLocalSession();
   try {
     const r = await s.execute("x = cumsum(1:5); disp(max(x))");

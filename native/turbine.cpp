@@ -2,7 +2,7 @@
 //
 // Reference parity: runmat-turbine — the Cranelift JIT tier that compiles
 // hot bytecode to native code (crates/runmat-turbine/src/compiler.rs:249,
-// profiler threshold, fallback-on-unsupported). On TPU the array hot path is
+// profiler threshold, fallback-on-unsupported). On the device the array hot path is
 // already XLA; the remaining Python-slow path is scalar host loops, which
 // this stack VM executes at native speed. The Python side translates a
 // restricted bytecode window (all-scalar doubles, arithmetic + comparisons +

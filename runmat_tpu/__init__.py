@@ -1,8 +1,8 @@
-"""runmat_tpu — a TPU-native MATLAB-compatible numerical computing runtime.
+"""runmat_tpu — a MATLAB-compatible numerical computing runtime on JAX.
 
 A from-scratch rebuild of the capabilities of runmat-org/runmat (a Rust +
-wgpu/WGSL MATLAB runtime) designed TPU-first: the compute path is jax/XLA/Pallas
-under `jax.jit`, fusion is traced-and-cached jaxprs instead of generated WGSL,
+wgpu/WGSL MATLAB runtime) on JAX: the compute path is jax/XLA under
+`jax.jit`, fusion is traced-and-cached jaxprs instead of generated WGSL,
 residency is jax device placement, and scale-out is `jax.sharding` over a Mesh.
 
 Layer map (mirrors SURVEY.md §1):
@@ -10,12 +10,21 @@ Layer map (mirrors SURVEY.md §1):
   vm/         HIR-lite lowering + bytecode + interpreter (≙ runmat-hir/mir/vm)
   runtime/    builtin registry + builtin library         (≙ runmat-runtime)
   accel/      provider contract + jax engine + fusion    (≙ runmat-accelerate*)
-  ops/        numeric kernels (Philox RNG, pallas)       (≙ wgpu shaders)
+  ops/        numeric kernels (counter RNG, FFT)         (≙ wgpu shaders)
   parallel/   mesh/sharding utilities (new capability)
   dl/         deep-learning toolbox                      (≙ builtins/deep_learning)
 """
 
 __version__ = "0.1.0"
+
+
+def cache_path(*parts: str) -> str:
+    """A path under the checkout's git-ignored .cache directory, where the
+    runtime keeps what it builds and records on its own: compiled
+    executables, the warmup manifest, the native library."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return os.path.join(root, ".cache", *parts)
 
 
 def __getattr__(name):

@@ -2,7 +2,7 @@
 crates/runmat-accelerate-api/src/lib.rs provider registry + tests :3728-3848).
 
 One active engine per process (the reference supports per-device provider
-tables; multi-device on TPU is expressed through jax.sharding inside the single
+tables; multi-device work is expressed through jax.sharding inside the single
 engine rather than through multiple providers)."""
 
 from __future__ import annotations

@@ -6,11 +6,11 @@ host round trip per iteration (VERDICT r3 #4; ≙ the reference's provider
 decomposition hooks, runmat-accelerate-api/src/lib.rs:2422-2530).
 
 This module implements the classic dense real-Schur pipeline as ONE jitted
-device program in real f64 arithmetic (no complex kernels — complex128
-compiles stall this TPU's compile service):
+device program in real f64 arithmetic (no complex kernels, so it also runs
+in split-plane complex mode):
 
 1. `hessenberg`: n-2 masked full-width Householder similarities — O(n^3)
-   total, each step two rank-1 updates of the full matrix (MXU/VPU
+   total, each step two rank-1 updates of the full matrix (GEMM
    friendly).
 2. `francis_qr`: implicit double-shift bulge-chasing sweeps on the active
    trailing block [lo, hi] inside a lax.while_loop, with subdiagonal
@@ -36,11 +36,10 @@ _EPS = float(np.finfo(np.float64).eps)
 
 
 def _dot(jnp, a, b):
-    """Matmul at lax.Precision.HIGHEST: XLA's DEFAULT contraction precision
-    on the TPU's emulated f64 loses ~10 decimal digits, which destroys the
-    orthogonality of the accumulated QR transforms (measured: Z orth 9e-4,
-    eigenvalues off by O(1) at n=64 with default precision; 1e-13 with
-    HIGHEST)."""
+    """Matmul at lax.Precision.HIGHEST: a reduced DEFAULT contraction
+    precision would destroy the orthogonality of the accumulated QR
+    transforms (a backend with emulated f64 measured Z orth 9e-4 and
+    eigenvalues off by O(1) at n=64 at DEFAULT; 1e-13 with HIGHEST)."""
     from jax import lax
     return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
 
@@ -87,11 +86,11 @@ def _house3(jnp, x, y, z, use3):
 
     (x, y, z) is pre-scaled by its max magnitude (dlahqr's column scaling)
     and u is normalized to UNIT length before the outer product. This is
-    not cosmetic: the TPU's f64 emulation carries only the f32 EXPONENT
-    range, so with tiny bulge entries (|x| ~ 1e-20 near convergence) the
-    cross terms of u u' underflow to zero while 2/||u||^2 stays huge —
-    producing reflectors non-orthogonal at the 1e-3 level (measured: Z
-    orthogonality 9.4e-4 after ~40 sweeps; 1e-13 with unit-u)."""
+    not cosmetic: an f64 emulation that carries only the f32 EXPONENT
+    range underflows the cross terms of u u' for tiny bulge entries
+    (|x| ~ 1e-20 near convergence) while 2/||u||^2 stays huge — producing
+    reflectors non-orthogonal at the 1e-3 level (Z orthogonality 9.4e-4
+    after ~40 sweeps; 1e-13 with unit-u)."""
     z = jnp.where(use3, z, 0.0)
     m = jnp.maximum(jnp.maximum(jnp.abs(x), jnp.abs(y)), jnp.abs(z))
     ms = jnp.where(m == 0, 1.0, m)
@@ -300,8 +299,8 @@ def balance(jnp, A, iters: int = 8):
         ok = (r > 0) & (c > 0)
         e = jnp.round(0.5 * jnp.log2(jnp.where(ok, r / c, 1.0)))
         f = jnp.exp2(jnp.clip(e, -60.0, 60.0))   # exact scale; +-60 keeps
-        # every f-ratio inside the f32 exponent range the TPU f64
-        # emulation actually carries
+        # every f-ratio inside the f32 exponent range, so the balancing is
+        # exact even under an f64 emulation with f32's exponent
         return A * (f[None, :] / f[:, None])
 
     return lax.fori_loop(0, iters, step, A)

@@ -1,4 +1,4 @@
-"""Lazy operation DAG: the TPU-native fusion plan.
+"""Lazy operation DAG: the device fusion plan.
 
 Reference parity: runmat-accelerate's AccelGraph + fusion planner + WGSL codegen
 (crates/runmat-accelerate/src/{graph.rs,fusion.rs:94-120,1513-1765}). Where the
@@ -75,12 +75,9 @@ class LazyNode:
 
     def gather(self) -> np.ndarray:
         """Materialize and transfer to host (≙ provider.download).
-        device_get is the one sanctioned D2H path: np.asarray()/float()/.item()
-        on an unready jax Array take a pathologically slow per-element route
-        through the TPU transfer layer (measured 100-2000x slower).
-        Device values are stored in PHYSICAL shape (vectors squeezed to rank-1
-        to avoid TPU (1,N) sublane padding); reshape back to the logical
-        MATLAB shape here at the host boundary."""
+        device_get is the one D2H path used. Device values are stored in
+        PHYSICAL shape (vectors squeezed to rank-1, see engine.phys_shape);
+        reshape back to the logical MATLAB shape here at the host boundary."""
         h = self.engine.jax.device_get(self.engine.materialize(self))
         # dispatches complete in program order on a device stream: a blocking
         # gather of this node proves every dispatch with id <= this node's is

@@ -782,8 +782,7 @@ def _build_and_run(eng, tr: _Trace, T: int, state, iter_host: np.ndarray) -> dic
     # initial carry: read-carried vars start from their live values;
     # write-before-read vars get typed zero placeholders (never read).
     # Placeholders and the iterable vector are cached per loop shape — each
-    # fresh device array is its own dispatch, which costs a tunnel round trip
-    # on remote-attached TPUs.
+    # fresh device array is its own dispatch.
     arg_cache = getattr(eng, "_loop_arg_cache", None)
     if arg_cache is None:
         arg_cache = eng._loop_arg_cache = {}

@@ -1,30 +1,32 @@
-"""Compensated double-precision GEMM on the int8 MXU (Ozaki-scheme).
+"""Compensated double-precision GEMM from int8 products (Ozaki-scheme).
 
-MATLAB's default class is `double`, but the TPU MXU is f32/bf16/int8 native
-and XLA emulates f64 matmul in software (~1.6 TFLOP/s on v5e). This module
-implements the opt-in `ozaki` matmul-precision policy: each f64 operand is
+MATLAB's default class is `double`. This module implements the opt-in
+`ozaki` matmul-precision policy for devices whose f64 GEMM is slow or
+emulated: each f64 operand is
 split into per-row (resp. per-column) power-of-two scales and 6 signed
 7-bit integer digit slices, the 21 digit-pair products with combined weight
->= 2^-49 are computed as int8 x int8 -> int32 MXU GEMMs (EXACT: |digit| <=
+>= 2^-49 are computed as int8 x int8 -> int32 GEMMs (EXACT: |digit| <=
 64, so |sum| <= K * 2^12 never overflows int32 for K <= 65536), and the
 diagonal sums are recombined in f64. The only approximation is the digit
-truncation at 2^-42 relative to the row/column scale — measured end-to-end
-accuracy is ~1e-12 relative on 8k GEMMs, far past f64-GEMM rounding noise
-and comfortably under the 1e-10 policy gate (tests/test_precision_policy).
+truncation at 2^-42 relative to the row/column scale — ~1e-12 relative on
+the CPU backend (tests/test_precision_policy), where the int32 products are
+exact. On the H100 the scheme is both slower than native f64 GEMM and only
+~3e-8 accurate (the int8 products lose exactness somewhere in XLA's GPU
+lowering; cause not isolated, PERF.md); the default policy never routes
+here.
 
-This is the TPU-native analog of the reference's precision guard
+An analog of the reference's precision guard
 (runmat-accelerate/src/precision.rs:40-60): rather than rejecting f64 on a
 reduced-precision device, the policy buys back f64 accuracy from exact
 integer arithmetic. Scheme after Ozaki et al. (error-free matmul
-transformations) re-homed to the v5e int8 MXU (~172 measured TOPS -> ~4-6x
-the emulated-f64 GEMM rate at equal accuracy for large K).
+transformations).
 
-Digit extraction runs almost entirely in f32 (full VPU rate): the row-scaled
+Digit extraction runs almost entirely in f32: the row-scaled
 value r (|r| <= 1/2, scaling by a power of two is exact) is represented as
 an (hi, mid) f32 pair; the first 4 digits come exactly out of `hi`
 (power-of-two multiplies, round, and small-value subtractions are all exact
 in f32), then `mid` is folded in for digits 5-6. Only the initial scale and
-the final recombination touch emulated-f64 elementwise ops.
+the final recombination touch f64 elementwise ops.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def _digits_along(jnp, x, axis: int):
     import numpy as np
     xmax = jnp.max(jnp.abs(x), axis=axis, keepdims=True)
     # power-of-two scale with |r| <= 1/2. frexp would be the natural tool
-    # but its s64 bitcast does not survive the TPU x64 rewrite; log2+ceil
+    # but its s64 bitcast does not survive every backend's x64 rewrite; log2+ceil
     # with a one-step fixup is exact regardless of libm rounding.
     xm = jnp.where(xmax > 0, xmax, 1.0)
     e = jnp.ceil(jnp.log2(xm)) + 1.0
@@ -76,7 +78,7 @@ def _digits_along(jnp, x, axis: int):
 
 
 def gemm_f64(jnp, a, b):
-    """C = a @ b for real float64 via 21 exact int8 MXU products.
+    """C = a @ b for real float64 via 21 exact int8 products.
 
     Keeps digit pairs with i + j <= DIGITS - 1 (combined weight >= 2^-49);
     same-diagonal products are summed in int32 (exact, see module doc)

@@ -1,12 +1,12 @@
-"""HBM residency ledger: the TPU-native analog of the reference GC's
+"""Device-memory residency ledger: this runtime's analog of the reference GC's
 memory-accounting layer.
 
 Reference parity: runmat-gc (crates/runmat-gc/src/{lib.rs,stats.rs,
 config.rs:11-23}) + the wgpu buffer residency pool
 (runmat-accelerate/src/backend/wgpu/residency.rs, provider/init.rs:26-60).
 The reference needs a tracing GC because Rust values own GPU buffers through
-handle tables; here the host language refcounts MatArrays, so the TPU-native
-design splits the GC's two jobs:
+handle tables; here the host language refcounts MatArrays, so this design
+splits the GC's two jobs:
 
   1. *Reclamation* — host refcounting + jax buffer lifetime (automatic).
   2. *Accounting & pressure* — this module: every LazyNode that acquires a
@@ -117,7 +117,7 @@ class ResidencyPool:
     def collect(self, engine, full: bool = False) -> dict:
         """Minor: drop the engine's transient device caches (loop-arg zeros /
         itvec placeholders). Major (full=True): additionally run the host GC
-        to break cycles pinning nodes, and clear the sync-probe cache.
+        to break cycles pinning nodes.
         (≙ runmat gc minor/major, runmat-gc/src/lib.rs:548,725)"""
         before = self.live_bytes
         cache = getattr(engine, "_loop_arg_cache", None)
@@ -125,10 +125,6 @@ class ResidencyPool:
         if cache:
             cache.clear()
         if full:
-            probes = [k for k in engine._jit_cache
-                      if isinstance(k, tuple) and k and k[0] == "sync_probe"]
-            for k in probes:
-                del engine._jit_cache[k]
             import gc as _pygc
             _pygc.collect()
         return {"kind": "major" if full else "minor",

@@ -16,8 +16,8 @@ Two embedding surfaces, both jax-free:
 * Python API: ``create_session()`` → a ``Session`` pinned to the host
   provider; drive it with ``.execute(source)``.
 * Wire API: ``handle_json(line)`` — the SAME JSON-lines op protocol the
-  TPU server speaks (server.py: execute/workspace/get/figures/...), so a
-  TS host reuses one protocol across three transports: HTTP (TPU server),
+  accelerator server speaks (server.py: execute/workspace/get/figures/...),
+  so a TS host reuses one protocol across three transports: HTTP (server),
   subprocess (node), and Pyodide (browser, via this function).
 
 The accelerate layer is structurally absent, not just disabled: Session

@@ -15,21 +15,21 @@ from typing import Any, Optional
 _DEFAULTS: dict[str, dict[str, Any]] = {
     "accelerate": {
         "provider": "auto",          # auto | jax | none
-        "platform": None,            # cpu | tpu | None (auto)
+        "platform": None,            # cpu | gpu | None (auto)
         "auto_offload": None,        # None = platform default
         "offload_threshold": 32768,
         "fuse_cap": None,
-        "compile_cache": None,       # dir | "0" to disable
-        # MXU contraction precision for f32 operands: "highest" (true-f32
-        # multi-pass, MATLAB single parity — default), "high" (3-pass),
-        # "bf16" (fast, opt-in downcast ≙ RUNMAT_ALLOW_PRECISION_DOWNCAST,
-        # reference precision.rs:31-60)
+        # contraction precision for f32 operands: "highest" (plain f32,
+        # MATLAB single parity — default), "high" and "bf16" (reduced-
+        # precision products; "bf16" is lax.Precision.DEFAULT, TF32 on an
+        # NVIDIA GPU), opt-in downcast ≙ RUNMAT_ALLOW_PRECISION_DOWNCAST,
+        # reference precision.rs:31-60
         "matmul_precision": "highest",
         # Wall-budget (seconds) for replaying the warmup manifest at session
         # init via AOT lower().compile() — pre-populates the persistent XLA
         # cache before the first user program (≙ pipeline warmup from disk,
-        # wgpu/warmup.rs:10). 0 disables (the default: remote-TPU compiles
-        # can cost minutes; bench/batch flows opt in explicitly).
+        # wgpu/warmup.rs:10). 0 disables (the default; bench/batch flows
+        # opt in explicitly).
         "warmup_init_budget_s": 0,
     },
     "execution": {
@@ -89,7 +89,6 @@ _ENV_MAP = {
     "RUNMAT_TPU_OFFLOAD_THRESHOLD": ("accelerate", "offload_threshold", int),
     "RUNMAT_TPU_FUSE_CAP": ("accelerate", "fuse_cap", int),
     "RUNMAT_TPU_COMPAT": ("language", "compat", str),
-    "RUNMAT_TPU_COMPILE_CACHE": ("accelerate", "compile_cache", str),
     "RUNMAT_TPU_MATMUL_PRECISION": ("accelerate", "matmul_precision", str),
     "RUNMAT_TPU_WARMUP_INIT_BUDGET": ("accelerate", "warmup_init_budget_s",
                                       float),

@@ -2,11 +2,11 @@
 
 Reference parity: the tape-based autodiff of the reference's deep-learning
 toolbox (runmat-runtime/src/builtins/deep_learning/autodiff.rs:12-40 —
-thread-local tape with per-op Node kinds). TPU-native redesign: the engine's
+thread-local tape with per-op Node kinds). Redesign on JAX: the engine's
 lazy DAG *is* the tape. dlfeval runs the MATLAB function with an uncapped
 fusion window so every op lands in one DAG; dlgradient converts the DAG to a
 traced jax function and lets jax.grad/XLA generate the backward pass — no
-hand-written VJP rules, and the whole forward+backward compiles to one TPU
+hand-written VJP rules, and the whole forward+backward compiles to one device
 program.
 """
 

@@ -2,11 +2,11 @@
 
 Reference parity: runmat-runtime/src/builtins/deep_learning/ ({layers,losses,
 training,model}.rs — tape-based reverse-mode autodiff + Adam provider hook).
-TPU-native design: jax.grad IS the tape; the training step is one jitted
-function; multi-chip scale-out uses jax.sharding (dp over batch, tp over the
-hidden dimension) — a new capability beyond the single-device reference
+Design on JAX: jax.grad IS the tape; the training step is one jitted
+function; multi-device scale-out uses jax.sharding (dp over batch, tp over
+the hidden dimension) — a new capability beyond the single-device reference
 (SURVEY.md §2.3: the reference has no DP/TP; jax.sharding is the designated
-TPU-native extension).
+extension).
 """
 
 from __future__ import annotations
@@ -38,8 +38,9 @@ def init_mlp(seed: int, sizes: list[int], dtype=None):
 
 
 def mlp_forward(params, x):
-    """Forward pass: x (batch, in) -> logits (batch, out). Hidden matmuls hit
-    the MXU; keep batch and hidden dims multiples of 128 for full tiling."""
+    """Forward pass: x (batch, in) -> logits (batch, out). Hidden matmuls run
+    on the matrix units; batch and hidden dims that are multiples of 128
+    tile fully."""
     _, jnp = _jax()
     h = x
     for i, (w, b) in enumerate(params):

@@ -5,9 +5,8 @@ with saturating arithmetic), :426-436 (Tensor logical dtype on host storage), an
 the binary-op class-resolution rules exercised throughout runmat-runtime's
 elementwise builtins. Implemented from MATLAB semantics, not translated code.
 
-TPU note: 'double' is the MATLAB default but f64 is slow on the MXU; the accel
-layer (accel/policy.py) decides placement/precision — this module is pure host
-semantics shared by every layer.
+'double' is the MATLAB default; the accel layer decides placement and
+precision — this module is pure host semantics shared by every layer.
 """
 
 from __future__ import annotations

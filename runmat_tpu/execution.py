@@ -7,8 +7,9 @@ stderr stream entries, display events, a workspace delta with upserts and
 removals, structured diagnostics, figures touched, profiling). Hosts (web
 REPL, TS client, LSP) consume this instead of scraping stdout text.
 
-The TPU-native twist: profiling carries the acceleration-engine dispatch
-deltas (compiles / cache hits / gathers / HBM movement) for the run, so a
+This runtime's twist: profiling carries the acceleration-engine dispatch
+deltas (compiles / cache hits / gathers / device-memory movement) for the
+run, so a
 host can tell a warm fused step from a cold compile — the information the
 reference surfaces via ProviderTelemetry snapshots
 (runmat-accelerate-api/src/lib.rs:1337-1376).

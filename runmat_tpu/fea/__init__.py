@@ -6,8 +6,8 @@ run_thermal / run_transient / run_nonlinear / run_electromagnetic
 (crates/runmat-analysis/fea/src/lib.rs:16-21), tet meshing
 (runmat-meshing/tetrahedron), assembly + solves (fea/src/{assembly,solve}).
 
-TPU-native design: element stiffness matrices are computed for ALL elements
-at once with batched einsum (vectorizes onto the MXU when the engine is
+Design: element stiffness matrices are computed for ALL elements at once
+with batched einsum (vectorizes onto the matrix units when the engine is
 active), assembled into the CSC SparseMatrix, and solved with the
 Jacobi-preconditioned CG whose matvec is a jax BCOO spmv on device
 (runmat_tpu/sparse.py) — large models never densify.

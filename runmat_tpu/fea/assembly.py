@@ -1,7 +1,7 @@
 """Finite-element assembly: batched TET4 stiffness/mass for elasticity and
 scalar diffusion.
 
-Reference parity: runmat-analysis/fea/src/assembly. TPU-native: all element
+Reference parity: runmat-analysis/fea/src/assembly. Here all element
 matrices are produced in one batched einsum over the whole mesh (no Python
 per-element loop for the matrix algebra), then scattered into triplets.
 """

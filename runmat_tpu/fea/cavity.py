@@ -5,7 +5,7 @@ Reference parity: runmat-meshing/tetrahedron/src/{generate,cavity,recover,
 reconnect,optimize}.rs — the reference's tet kernel inserts points by
 carving the circumsphere-violating cavity and star-connecting its boundary,
 recovers missing PLC facets with Steiner points, and optimizes on a
-min-dihedral gate. The TPU build keeps the same pipeline host-side (meshing
+min-dihedral gate. This build keeps the same pipeline host-side (meshing
 is pointer-chasing, not FLOPs; the reference's kernel is host Rust for the
 same reason) with numpy-vectorized predicates.
 """

@@ -2,8 +2,8 @@
 placement, Laplacian smoothing, sliver removal.
 
 Reference parity: the runmat-meshing stack (crates/runmat-meshing/* — PLC
-prep, sizing fields, Delaunay tet generation/recovery, optimization). The
-TPU-native slice: point placement honors a sizing field h(x), the Delaunay
+prep, sizing fields, Delaunay tet generation/recovery, optimization). This
+slice: point placement honors a sizing field h(x), the Delaunay
 kernel is host scipy.spatial (the reference's native meshing kernels are
 host-side Rust for the same reason), and mesh optimization is vectorized
 numpy — smoothing moves all interior nodes at once, quality is the batched

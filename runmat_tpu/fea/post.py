@@ -5,7 +5,7 @@ recover_result_fields — strain/stress per element from the displacement
 solution, element + nodal-averaged von Mises, strain-energy density and
 total strain energy, reaction forces at constrained dofs, residual norm;
 thermal gradient/flux recovery for the scalar pipelines. All recoveries
-here are single batched einsums over the whole mesh (TPU-friendly shape:
+here are single batched einsums over the whole mesh (device-friendly shape:
 no per-element Python loop), mirroring the assembly module's style.
 """
 

@@ -5,7 +5,7 @@ Reference parity: runmat-analysis/fea/src/solve/{linear w/ preconditioners,
 nonlinear, transient} and fea/src/solve/preconditioner.rs. The reference
 ships a preconditioner factory (jacobi/IC0/ILU0/SSOR), Newton with line
 search for the nonlinear pipeline, and Newmark/HHT time integration; this
-module provides the TPU-build equivalents on the SparseMatrix/CSR layer.
+module provides the equivalents on the SparseMatrix/CSR layer.
 The per-iteration triangular solves are host-side (latency-bound, tiny);
 the O(N) matvecs ride the device CG path in sparse.py when large.
 """

@@ -4,7 +4,7 @@ Reference parity: runmat-hir (crates/runmat-hir/src/lib.rs:16-44) — the
 reference lowers the AST into an HIR assembly carrying binding/callable
 resolution, the classdef model, the entrypoint policy (script vs function
 file), and the dynamic-workspace gates (eval/assignin/evalin force dynamic
-resolution, lib.rs:36-41). This module is that layer for the TPU build: a
+resolution, lib.rs:36-41). This module is that layer for this runtime: a
 pure resolution pass over the parsed program whose tables power the
 static-analysis lints and host tooling, while the VM keeps MATLAB's
 runtime call-or-index semantics (the RESOLVE_CALL design note in

@@ -2,8 +2,8 @@
 
 Reference parity: the reference's performance-critical native components
 (runmat-turbine JIT, hot kernels). The shared library builds from
-native/*.cpp on first use (g++, cached next to the source or in
-~/.cache/runmat_tpu) and every caller degrades gracefully to the Python path
+native/*.cpp on first use (g++, cached under the checkout's .cache/native)
+and every caller degrades gracefully to the Python path
 when no toolchain is available.
 """
 
@@ -39,9 +39,9 @@ def turbine() -> object:
     import hashlib
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    cache_dir = os.environ.get(
-        "RUNMAT_TPU_NATIVE_CACHE",
-        os.path.expanduser("~/.cache/runmat_tpu"))
+    from .. import cache_path
+    cache_dir = os.environ.get("RUNMAT_TPU_NATIVE_CACHE",
+                               cache_path("native"))
     lib_path = os.path.join(cache_dir, f"libturbine-{digest}.so")
     if not os.path.exists(lib_path):
         try:

@@ -1,15 +1,14 @@
 """Split-plane FFT: double-precision FFT on (re, im) plane pairs.
 
 Why this exists: MATLAB's default class is double, so `fft` must deliver
-~1e-12 parity — but this TPU runtime cannot compile complex128 programs at
-all (the tpu_compile_helper aborts), and complex dtypes poison the backend
-at program boundaries (see accel/cplx.py). XLA's native FFT is therefore
-unusable for doubles on this platform. This module implements the FFT in
-pure REAL f64 arithmetic on split planes:
+~1e-12 parity. In split-plane complex mode (RUNMAT_TPU_COMPLEX_NATIVE=0,
+see accel/cplx.py) no complex128 dtype may appear, so XLA's native FFT is
+unusable for doubles there. This module implements the FFT in pure REAL f64
+arithmetic on split planes:
 
   * power-of-two n: radix-2 Stockham (autosorting — no bit-reversal
     gather, just reshape/stack layout changes, which XLA turns into cheap
-    copies on TPU). log2(n) passes, each a fused elementwise stage.
+    copies). log2(n) passes, each a fused elementwise stage.
   * arbitrary n: Bluestein chirp-z over the power-of-two core
     (3 Stockham FFTs of size m = next_pow2(2n-1)).
 
@@ -18,7 +17,7 @@ the jit trace — exact to the last ulp, no device trig involved.
 
 Reference parity: the staged radix FFT dispatch in the wgpu backend
 (runmat-accelerate/src/backend/wgpu/provider/ops/fft/kernels.rs,
-dispatch/fft.rs) — same role, TPU-native formulation.
+dispatch/fft.rs) — same role, split-plane formulation.
 
 For `single` inputs the engine uses XLA's native FFT with an *internal*
 complex64 (allowed — only boundary complex fails); this module is the f64

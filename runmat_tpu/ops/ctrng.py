@@ -8,15 +8,14 @@ counter blocks, so gather parity holds regardless of where a draw executed,
 and chunked generation advances the same counter. `rng(seed)` resets the
 stream.
 
-TPU-first design decisions (measured on v5e):
-  * **Threefry2x32-20, not Philox4x32.** Philox needs 32x32->64 integer
-    multiplies, which the TPU VPU emulates (a 16-bit-limb Philox ran ~50x
-    slower than roofline inside a fori_loop). Threefry is add/xor/rotate
-    only — all single-cycle vector ops. Same counter-based stream contract.
-  * **No strided ops anywhere.** Interleaved pairing (bits[0::2]) costs ~50x
-    on TPU; every transform here uses whole-array or contiguous-half
-    operations only. One block yields two u32 words, exposed in BLOCKED
-    order [all w0 | all w1].
+Design decisions:
+  * **Threefry2x32-20, not Philox4x32.** Threefry is add/xor/rotate only;
+    Philox needs 32x32->64 integer multiplies, which the runtime's first
+    accelerator emulated. Same counter-based stream contract. (Whether
+    Philox pays on a GPU is open; switching changes every stream.)
+  * **No strided ops anywhere.** Every transform here uses whole-array or
+    contiguous-half operations only. One block yields two u32 words,
+    exposed in BLOCKED order [all w0 | all w1].
   * The counter can be a pair of traced u32 scalars, so draws jit cleanly
     with the counter as a runtime parameter (loop iterations reuse one
     compiled kernel — see accel/loops.py).
@@ -107,9 +106,10 @@ def uniform_u32(xp, key, counter, n: int):
 
 def _to_f64_exact(xp, w):
     """u32 -> f64 via 16-bit halves. A direct astype is exact on host
-    numpy but TPU's emulated f64 converts >24-bit integers through f32
-    (observed: 2-ulp error in the uniform stream on a real chip); 16-bit
-    pieces convert exactly everywhere and reassemble exactly."""
+    numpy but a backend with emulated f64 may convert >24-bit integers
+    through f32 (a 2-ulp error in the uniform stream on the runtime's first
+    accelerator); 16-bit pieces convert exactly everywhere and reassemble
+    exactly."""
     hi = (w >> xp.uint32(16)).astype(xp.float64)
     lo = (w & xp.uint32(0xFFFF)).astype(xp.float64)
     return hi * np.float64(65536.0) + lo
@@ -128,8 +128,8 @@ def uniform(xp, key, counter, n: int, dtype):
 
 
 def normal(xp, key, counter, n: int, dtype):
-    """n standard normals via Box-Muller over contiguous half-pairs (strided
-    interleave would cost ~50x on TPU). Consumes blocks_for('randn', ...)."""
+    """n standard normals via Box-Muller over contiguous half-pairs (no
+    strided interleave). Consumes blocks_for('randn', ...)."""
     single = dtype in (np.float32, "float32", "single")
     m = (n + 1) // 2
     if single:

@@ -2,15 +2,15 @@
 
 Reference parity note (SURVEY.md §2.3): the reference is single-device; its
 multi-device story is a provider registry keyed by device_id with explicit
-upload/download. The TPU-native extension is jax.sharding over a Mesh with XLA
-collectives riding ICI — this module provides the mesh construction and the
-sharded MLP training step used by __graft_entry__.dryrun_multichip.
+upload/download. This runtime's extension is jax.sharding over a Mesh with XLA
+collectives — this module provides the mesh construction and the sharded MLP
+training step used by __graft_entry__.dryrun_multichip.
 
 Sharding layout for the MLP train step:
   * dp ('data'):  batch dim of x/y; gradients all-reduce (psum) over dp.
   * tp ('model'): hidden dim of W1/W2 (column-, then row-sharded) — the
     classic Megatron 2-matmul pattern; XLA inserts the reduce-scatter/
-    all-gather pair on ICI.
+    all-gather pair.
 """
 
 from __future__ import annotations
@@ -20,20 +20,16 @@ import numpy as np
 
 def make_mesh(n_devices: int, dp: int = 0, tp: int = 0):
     """Create a Mesh over ('data', 'model') axes. If dp/tp are 0, pick the
-    most-square factorization with tp <= 8 (tp traffic should ride ICI)."""
+    most-square factorization dp x tp with dp <= tp, so both the batch and
+    the hidden dimension are split whenever n_devices is not prime."""
     import jax
     from jax.sharding import Mesh
     devs = np.array(jax.devices()[:n_devices])
     if len(devs) < n_devices:
         raise ValueError(f"need {n_devices} devices, have {len(devs)}")
     if not dp or not tp:
-        # prefer a 2-D factorization so both dp and tp paths are exercised
-        tp = 1
-        for cand in (4, 2, 1):
-            if n_devices % cand == 0 and n_devices // cand >= 2:
-                tp = cand
-                break
-        dp = max(1, n_devices // tp)
+        dp = max(d for d in range(1, int(n_devices ** 0.5) + 1)
+                 if n_devices % d == 0)
         tp = n_devices // dp
     return Mesh(devs.reshape(dp, tp), ("data", "model"))
 

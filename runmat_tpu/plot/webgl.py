@@ -3,7 +3,7 @@
 The browser host receives vertex/index buffers (base64 float32/uint8/uint32)
 once per scene revision and renders them with WebGL — orbit/zoom/pan run
 entirely client-side with ZERO server round trips per frame. This is the
-TPU-native re-home of the reference's GPU plotting engine, where figures are
+This runtime's re-home of the reference's GPU plotting engine, where figures are
 vertex buffers consumed by wgpu render pipelines and the camera lives in the
 winit/egui event loop (crates/runmat-plot/src/gpu/{surface,line,scatter3,
 axis}.rs, src/plots/figure.rs): here the "GPU" is the client's, the scene

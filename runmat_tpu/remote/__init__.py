@@ -3,7 +3,7 @@
 Reference parity: runmat-server-client (crates/runmat-server-client/src/
 {auth,public_api}.rs) + the public spec (/root/reference/openapi/
 runmat-public.yaml) — orgs, projects, remote project filesystem, snapshots,
-history. The TPU build ships the same three pieces re-designed for a
+history. This build ships the same three pieces re-designed for a
 zero-egress deployment:
 
   * `client.PublicApiClient`  — typed client over urllib (works against any

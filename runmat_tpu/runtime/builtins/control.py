@@ -232,7 +232,7 @@ def m_version(*args):
 
 @builtin("ver", category="introspection", min_in=0, pass_ctx=True)
 def m_ver(*args, ctx=None):
-    ctx.session.write("runmat-tpu: TPU-native MATLAB-compatible runtime\n")
+    ctx.session.write("runmat-tpu: MATLAB-compatible runtime on JAX\n")
     return None
 
 

@@ -1,7 +1,7 @@
 """Deep-learning toolbox builtins (dlarray-style surface).
 
 Reference parity: runmat-runtime/src/builtins/deep_learning/ (autodiff tape,
-layers, adam, crossentropy, training). The TPU-native implementation lives in
+layers, adam, crossentropy, training). The JAX implementation lives in
 runmat_tpu/dl (jax-grad based instead of a hand-rolled tape — jax IS the tape);
 these builtins expose the MATLAB-level API. Round 1 registers the core
 numeric ops; the training loop builtins land with the dl module.
@@ -103,7 +103,7 @@ def m_adamupdate(p, g, m_avg, v_avg, it, lr, *rest, nargout=1):
 
 # --------------------------------------------------------------------------- #
 # dlarray surface: tracing, gradients, layers, updates
-# (≙ deep_learning/{autodiff,layers,training}.rs; TPU-native via jax.grad —
+# (≙ deep_learning/{autodiff,layers,training}.rs; on JAX via jax.grad —
 # see runmat_tpu/dl/autodiff.py)
 # --------------------------------------------------------------------------- #
 

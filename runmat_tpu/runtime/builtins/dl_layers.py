@@ -3,7 +3,7 @@ trainingOptions, trainNetwork/trainnet, forward, analyzeNetwork, padsequences.
 
 Reference parity: runmat-runtime/src/builtins/deep_learning/{layers,training,
 model}.rs — the reference registers layer constructors + a host training
-loop with provider adam_update hooks. TPU-native redesign: a dlnetwork
+loop with provider adam_update hooks. Redesign on JAX: a dlnetwork
 compiles its whole forward (and the full Adam training step) into ONE jitted
 jax program — the layer list is traced once into XLA, the minibatch loop
 reuses the cached executable, and parameters live in HBM across steps.
@@ -605,7 +605,7 @@ def _opt(opts, name, default):
 
 def _train(net: DlNetwork, X: np.ndarray, Y: np.ndarray, opts) -> DlNetwork:
     """Full Adam/SGDM training: ONE jitted train step reused across all
-    minibatches (the XLA executable is the hot loop — TPU-native)."""
+    minibatches (the XLA executable is the hot loop)."""
     import jax
     import jax.numpy as jnp
 

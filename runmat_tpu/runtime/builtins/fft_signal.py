@@ -179,7 +179,7 @@ def m_conv2(a, b, shape=None):
         from ...accel import active_engine
         eng = active_engine()
         if eng is not None and eng.route_linalg(a, b):
-            # ≙ provider conv2d: conv_general_dilated on the MXU
+            # ≙ provider conv2d: one conv_general_dilated on device
             out = eng.linalg("conv2", [a, b], (mode,))
             if out is not None:
                 return out[0]

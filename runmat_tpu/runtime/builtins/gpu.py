@@ -1,7 +1,7 @@
 """gpuArray programming model: gpuArray/gather/gpuDevice/arrayfun/...
 
 Reference parity: runmat-runtime/src/builtins/acceleration/gpu/
-(gpuarray.rs, gather.rs, gpudevice.rs, arrayfun.rs). On TPU, "gpuArray" means
+(gpuarray.rs, gather.rs, gpudevice.rs, arrayfun.rs). "gpuArray" means
 device residency in the accel engine (a live/lazy jax array); gather
 materializes to host numpy. The same builtins work against the jax-CPU engine
 in tests (≙ the reference's in-process fake provider, SURVEY.md §4 item 4).
@@ -57,7 +57,7 @@ def m_distributed(x):
     multi-chip extension, SURVEY.md §2.3 — reference is single-device; on a
     1-chip engine this is equivalent to gpuArray). The largest mesh-divisible
     axis is partitioned over the 'data' axis; XLA GSPMD propagates the
-    sharding through all subsequent lazy ops and inserts ICI collectives."""
+    sharding through all subsequent lazy ops and inserts the collectives."""
     eng = _engine()
     if not isinstance(x, MatArray):
         raise bad_arg("distributed", "Input must be numeric or logical.")
@@ -274,7 +274,7 @@ def m_arrayfun(f, *arrays, ctx=None, nargout=1):
 def m_pagefun(f, *arrays, ctx=None, nargout=1):
     """pagefun(f, A, B, ...): apply f per 2-D page of ND inputs.
     pagefun(@mtimes, A, B) rides the batched device matmul (pagemtimes on
-    the MXU) instead of the per-page host loop."""
+    the matrix units) instead of the per-page host loop."""
     arrs = list(arrays)
     from ...values import FunctionHandle
     if isinstance(f, FunctionHandle) and f.kind == "named" and \

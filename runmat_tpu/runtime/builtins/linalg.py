@@ -3,7 +3,7 @@
 Reference parity: runmat-runtime/src/{blas.rs,lapack.rs} + provider solve/
 decomposition hooks (runmat-accelerate-api/src/lib.rs:2422-2530). Host path
 uses numpy/LAPACK; device path routes through the accel engine's DenseOps
-(accel/dense.py) onto the MXU via jnp.linalg/jax.scipy.linalg, with the same
+(accel/dense.py) onto the device via jnp.linalg/jax.scipy.linalg, with the same
 MATLAB option surfaces (economy QR, chol info output, linsolve structure
 opts). Every device route has the host path as its fallback — the engine is
 never required for correctness.
@@ -661,7 +661,7 @@ def m_conv(a, b, shape=None):
     if mode not in ("full", "same", "valid"):
         raise bad_arg("conv", f"Unknown shape option '{mode}'.")
     # device path (≙ provider conv1d, api lib.rs:2535): jnp.convolve lowers
-    # onto conv_general_dilated -> MXU; host fallback below
+    # onto conv_general_dilated on device; host fallback below
     if isinstance(a, MatArray) and isinstance(b, MatArray) and \
             not a.is_complex and not b.is_complex:
         from ...accel import active_engine

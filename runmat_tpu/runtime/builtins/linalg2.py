@@ -58,7 +58,7 @@ def _page_view(h: np.ndarray) -> np.ndarray:
 @builtin("pagemtimes", category="math/linalg", min_in=2, max_in=4)
 def m_pagemtimes(a, *rest):
     """pagemtimes(A, B) or pagemtimes(A, transpA, B, transpB): batched matmul
-    per trailing page. On TPU this is one einsum over the page dimension."""
+    per trailing page. On device this is one einsum over the page dimension."""
     if len(rest) == 1:
         b = rest[0]
         ta = tb = "none"

@@ -113,6 +113,14 @@ def _host_data(x: MatArray, acc: str) -> np.ndarray:
     return h
 
 
+def _wide(h: np.ndarray):
+    """Accumulator dtype for a host sum/mean: single data accumulates in
+    double and rounds back once (NumPy's float32 accumulation along a
+    strided axis is sequential and loses digits on large reductions)."""
+    return {np.dtype(np.float32): np.float64,
+            np.dtype(np.complex64): np.complex128}.get(h.dtype)
+
+
 @builtin("sum", category="math/reduction", min_in=1, accel_op="reduce_sum")
 def m_sum(x, *rest):
     dims, type_mode, nan_mode = _parse_opts(list(rest))
@@ -126,9 +134,12 @@ def m_sum(x, *rest):
     if dv is not None:
         return dv
     h = _host_data(x, acc)
+    wide = _wide(h)
     with np.errstate(all="ignore"):
-        r = (np.nansum(h, axis=axes, keepdims=True) if nan_mode == "omitnan"
-             else np.sum(h, axis=axes, keepdims=True))
+        r = (np.nansum if nan_mode == "omitnan" else np.sum)(
+            h, axis=axes, keepdims=True, dtype=wide)
+    if wide is not None:
+        r = r.astype(h.dtype)
     if dtypes.is_integer_class(acc):
         return _norm_result(dtypes.saturate_cast(r, acc), acc)
     return _norm_result(r, acc)
@@ -166,8 +177,8 @@ def m_mean(x, *rest):
         return dv
     h = _host_data(x, acc if not dtypes.is_integer_class(acc) else "double")
     with np.errstate(all="ignore"):
-        r = (np.nanmean(h, axis=axes, keepdims=True) if nan_mode == "omitnan"
-             else np.mean(h, axis=axes, keepdims=True))
+        r = (np.nanmean if nan_mode == "omitnan" else np.mean)(
+            h, axis=axes, keepdims=True, dtype=_wide(h))
     if dtypes.is_integer_class(acc):
         return _norm_result(dtypes.saturate_cast(r, acc), acc)
     return _norm_result(r.astype(h.dtype) if acc == "single" else r, acc)

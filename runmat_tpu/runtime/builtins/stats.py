@@ -112,47 +112,38 @@ def m_histcounts(x, bins=None, *opts, nargout=1):
             return c / np.where(w == 0, 1.0, w)
         return c
 
-    hx = fortran_ravel(_f(x))
-    hx = hx[np.isfinite(hx)]
+    def host_x():
+        # gathers x: only after the device path has had its chance
+        hx = fortran_ravel(_f(x))
+        return hx[np.isfinite(hx)]
+
     if binwidth is not None and bins is None:
+        hx = host_x()
         lo = hx.min() if hx.size else 0.0
         hi = hx.max() if hx.size else 1.0
         nb = max(int(np.ceil((hi - lo) / binwidth)), 1)
         edges = lo + binwidth * np.arange(nb + 1)
         counts, edges = np.histogram(hx, bins=edges)
     elif bins is None:
+        hx = host_x()
         nb = max(int(np.ceil(np.sqrt(hx.size))), 1)
         counts, edges = np.histogram(hx, bins=nb)
     elif bins.size == 1:
-        counts, edges = np.histogram(hx, bins=int(bins.scalar_double()))
+        counts, edges = np.histogram(host_x(), bins=int(bins.scalar_double()))
     else:
         if norm == "count" and isinstance(x, MatArray) and not x.is_complex:
             from ...accel import active_engine
             eng = active_engine()
             if eng is not None and eng.route_linalg(x):
-                # exact-affine power-of-two edges (linspace over a binary
-                # range) unlock the two-level MXU kernel — detected host-
-                # side and stamped into the op's static opts. Only valid
-                # when the f64 edges are exactly f32-representable (the
-                # kernel compares in f32; single x promotes losslessly).
-                affine = None
-                if not bins.on_device and x.mclass == "single":
-                    e64 = _f(bins).reshape(-1)
-                    if np.array_equal(e64, e64.astype(np.float32)):
-                        from ...ops.pallas.histogram import \
-                            affine_edge_params
-                        affine = affine_edge_params(
-                            e64.astype(np.float32))
                 # explicit edges: bin count is static -> one device kernel
-                out = eng.linalg("histcounts", [x, bins],
-                                 (affine,) if affine else ())
+                out = eng.linalg("histcounts", [x, bins])
                 if out is not None:
                     c = out[0]
                     if c.shape[0] > 1:
                         c = eng.reshape(c, (1, c.size))
                     res = [c, MatArray(_f(bins).reshape(1, -1), "double")]
                     return res[:max(1, nargout)]
-        counts, edges = np.histogram(hx, bins=fortran_ravel(_f(bins)))
+        counts, edges = np.histogram(host_x(), bins=fortran_ravel(_f(bins)))
     out = [MatArray(_apply_norm(counts, edges).reshape(1, -1), "double"),
            MatArray(np.asarray(edges, np.float64).reshape(1, -1), "double")]
     return out[:max(1, nargout)]

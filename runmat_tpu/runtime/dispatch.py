@@ -494,14 +494,14 @@ def mldivide(a, b):
         sa, sb = a.shape, b.shape
         if len(sa) == 2 and len(sb) == 2 and sa[0] == sb[0] \
                 and a.size and b.size:
-            # square -> LU solve on MXU; rectangular -> QR least squares
+            # square -> LU solve on device; rectangular -> QR least squares
             # (≙ provider mldivide, runmat-accelerate-api/src/lib.rs:2422)
             kind = "solve" if sa[0] == sa[1] else "lstsq"
             out = eng.linalg(kind, [a, b], out_class=out_class)
             if out is None and kind == "solve":
                 # LU solve unsupported for this dtype (observed: f64 LU custom
-                # calls fail on some TPU stacks while QR works) -> QR solve,
-                # still on the MXU
+                # calls fail on some backends while QR works) -> QR solve,
+                # still on device
                 out = eng.linalg("lstsq", [a, b], out_class=out_class)
             if out is not None:
                 return out[0]

@@ -318,10 +318,10 @@ def host_header_ok(hdr: str, host: str) -> bool:
 
 
 def serve_http(sess, host: str, port: int, token: str = None) -> int:
-    """HTTP bridge + in-browser REPL: the TPU-native answer to the
+    """HTTP bridge + in-browser REPL: this runtime's answer to the
     reference's wasm embedding (crates/runmat-wasm + bindings/ts). A browser
-    cannot host a TPU, so instead of compiling the runtime to wasm the
-    session stays server-side (next to the chips) and the browser gets a
+    cannot host the accelerator, so instead of compiling the runtime to wasm
+    the session stays server-side (next to the cards) and the browser gets a
     single-page REPL speaking the same request ABI over POST /api.
     GET / serves the page; binds localhost.
 
@@ -448,7 +448,7 @@ overflow:hidden;background:#fff;cursor:grab}
 #figs h4{margin:14px 0 4px;font-size:11px;color:var(--dim)}
 </style></head><body>
 <div id="main">
- <div id="log">runmat-tpu web REPL — session runs server-side next to the TPU.
+ <div id="log">runmat-tpu web REPL — session runs server-side next to the accelerator.
 Type MATLAB, Enter to run. Figures render below the workspace:
 drag to pan, wheel to zoom, double-click to reset.
 </div>

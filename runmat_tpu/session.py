@@ -41,6 +41,20 @@ def _install_warning_filters() -> None:
                                 category=RuntimeWarning)
 
 
+_HOST_ONLY_NOTED = False
+
+
+def _note_host_only(err: BaseException) -> None:
+    """Say once per process, on stderr, why an auto-accelerated session runs
+    on the host."""
+    global _HOST_ONLY_NOTED
+    if _HOST_ONLY_NOTED:
+        return
+    _HOST_ONLY_NOTED = True
+    print(f"runmat: accelerator engine unavailable, running on the host: "
+          f"{type(err).__name__}: {err}", file=sys.stderr)
+
+
 class ExecutionResult:
     __slots__ = ("output", "error", "wall_time")
 
@@ -56,7 +70,7 @@ class ExecutionResult:
 
 class Session:
     def __init__(self, accelerate: Optional[bool] = None, stdout=None):
-        """accelerate: None = auto (enable if a TPU/accelerator engine
+        """accelerate: None = auto (enable if the accelerator engine
         initializes), True/False forces."""
         _install_warning_filters()
         self.global_vars: dict = {}
@@ -107,9 +121,10 @@ class Session:
                                                       "offload_threshold"),
                     matmul_precision=self.config.get("accelerate",
                                                      "matmul_precision"))
-            except Exception:
+            except Exception as e:
                 if accelerate:
                     raise
+                _note_host_only(e)
             else:
                 # Budgeted warmup-manifest replay at init: AOT-compiles
                 # recorded programs into the persistent XLA cache before the

@@ -3,10 +3,10 @@
 Reference parity: Value::SparseTensor — CSC matrices
 (crates/runmat-builtins/src/lib.rs:439-441) and the sparse builtin family.
 
-TPU-first notes: the host representation is CSC (column-major, like MATLAB);
+Design notes: the host representation is CSC (column-major, like MATLAB);
 large solves and matvecs lower to a jax BCOO matmul / CG iteration on device
 (jax.experimental.sparse), where XLA turns the gather-scatter into efficient
-TPU code. Elementwise ops between sparse operands stay sparse; any op with a
+device code. Elementwise ops between sparse operands stay sparse; any op with a
 dense operand densifies (MATLAB's rule for +, elementwise fns of nonzero
 preserving ops keep sparsity).
 """
@@ -189,7 +189,7 @@ class SparseMatrix:
 
     def solve(self, b: np.ndarray) -> np.ndarray:
         """A \\ b. Small systems densify; large symmetric systems run CG on
-        the accel device via a BCOO matvec (TPU path); large unsymmetric
+        the accel device via a BCOO matvec (device path); large unsymmetric
         fall back to dense with a size guard."""
         if self.m != self.n:
             # least squares via dense QR

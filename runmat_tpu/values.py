@@ -1,7 +1,7 @@
 """The MATLAB value model: arrays, cells, structs, strings, function handles.
 
 Reference parity: runmat-builtins/src/lib.rs:73-123 (Value enum, 23 variants) and
-:426-436 (Tensor: column-major shape + logical dtype). Design differences for TPU:
+:426-436 (Tensor: column-major shape + logical dtype). Design differences here:
 
   * Host storage is numpy with the *MATLAB logical shape*; all order-sensitive
     semantics (linear indexing, reshape, (:) ) go through explicit Fortran-order

@@ -63,7 +63,7 @@ def build(outdir: str) -> str:
 
         add(f"{distinfo}/METADATA", (
             f"Metadata-Version: 2.1\nName: {NAME}\nVersion: {VERSION}\n"
-            "Summary: RunMat-TPU language front end for client-side "
+            "Summary: RunMat language front end for client-side "
             "(Pyodide/browser) execution\n"
             "Requires-Dist: numpy\n").encode())
         add(f"{distinfo}/WHEEL", (

@@ -1,7 +1,7 @@
 """dlarray autodiff conformance: gradients, layers, losses, training loop.
 
 ≙ reference deep_learning tests (builtins/deep_learning/{autodiff,layers,
-losses,training}.rs). The TPU-native tape is the engine's lazy DAG
+losses,training}.rs). The tape here is the engine's lazy DAG
 differentiated by jax.grad (runmat_tpu/dl/autodiff.py)."""
 
 import numpy as np

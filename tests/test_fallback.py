@@ -57,19 +57,18 @@ def test_try_catch_recovers_device_error():
     assert "Undefined" in v["msg"].to_str() or "MATLAB" in v["msg"].to_str()
 
 
-def test_tpu_gated_ops_are_instrumented():
-    """VERDICT r2 weak #3: ops gated off on TPU (complex128 kinds — eig
-    itself is device-native since round 4) must not fail silent-slow —
-    the gate logs to the launch log, bumps the host_fallbacks stat, and
-    warns once on stderr."""
+def test_split_plane_gated_ops_are_instrumented(monkeypatch):
+    """VERDICT r2 weak #3: ops gated off the device (complex kinds in
+    split-plane mode) must not fail silent-slow — the gate logs to the
+    launch log, bumps the host_fallbacks stat, and warns once on stderr."""
     import io
     import sys
     from runmat_tpu.accel import active_engine, init_engine, reset_engine, set_engine
     prev = active_engine()
+    monkeypatch.setenv("RUNMAT_TPU_COMPLEX_NATIVE", "0")
     reset_engine()
     eng = init_engine(platform="cpu")
     try:
-        eng.platform = "tpu"          # simulate the gated platform
         base = eng.stats["host_fallbacks"]
         cap = io.StringIO()
         old = sys.stderr
@@ -80,10 +79,10 @@ def test_tpu_gated_ops_are_instrumented():
         finally:
             sys.stderr = old
         assert eng.stats["host_fallbacks"] == base + 2   # every call counted
-        assert "complex128" in cap.getvalue()            # warned ONCE
+        assert "split-plane" in cap.getvalue()           # warned ONCE
         assert cap.getvalue().count("warning") == 1
         assert any(e["cat"] == "host_fallback" and e["ops"] == ["solve"]
                    for e in eng.launch_log)
+        assert eng.dense.supported("solve", np.dtype(np.float64)) is True
     finally:
-        eng.platform = "cpu"
         set_engine(prev)

@@ -1,4 +1,4 @@
-"""Fused device arrayfun/pagefun (TPU-native improvement over the
+"""Fused device arrayfun/pagefun (an improvement over the
 reference's host-execute-and-reupload arrayfun, gpu/arrayfun.rs:1-7)."""
 
 import numpy as np

@@ -1,7 +1,7 @@
 """Multi-chip sharding over the virtual 8-device CPU mesh.
 
 Reference parity note (SURVEY.md §2.3): the reference is single-device; the
-TPU-native extension is jax.sharding over a Mesh with XLA collectives. These
+extension here is jax.sharding over a Mesh with XLA collectives. These
 tests validate that the dp x tp sharded training step compiles + executes and
 that parameters stay sharded (the driver's dryrun_multichip covers the same
 path from the outside)."""

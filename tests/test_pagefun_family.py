@@ -2,7 +2,7 @@
 (device batched routes through accel/dense.py) and pagesvd/pagelu (host).
 
 Device pages ride ONE batched jnp.linalg call on the stacked page axis —
-the MXU-native shape — instead of a per-page loop (≙ the reference's
+one batched call — instead of a per-page loop (≙ the reference's
 provider pagefun hooks, backend/wgpu/provider/ops/linalg/pagefun.rs).
 """
 

@@ -116,7 +116,7 @@ def test_telemetry_op():
 
 def test_http_bridge_serves_repl_and_api(tmp_path):
     """serve --http: browser REPL page + POST /api request ABI (the
-    wasm-embedding analog: session stays server-side next to the TPU)."""
+    wasm-embedding analog: session stays server-side next to the card)."""
     import threading
     import time
     import urllib.request
